@@ -2,7 +2,7 @@
 (multiprocessing, MPI-rank-emulating) baseline is the honest comparison the
 benchmark reports against on multi-core hosts (bench.py:run_cpu_baseline_parallel),
 and single-core bench hosts never execute it — so it is pinned here on a tiny
-problem with 2 workers against the sequential baseline (VERDICT r2 item 5).
+problem with 2 workers against the sequential baseline.
 """
 
 import os

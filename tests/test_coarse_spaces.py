@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ddm_tpu.api import build_preconditioner, default_ptree, setup_problem
-from ddm_tpu.fem import problems as prob
-from ddm_tpu.precond.schwarz import build_schwarz
-from ddm_tpu.solvers.krylov import gmres_solve, operator_of, prec_of
+from ddm_jax.api import build_preconditioner, default_ptree, setup_problem
+from ddm_jax.fem import problems as prob
+from ddm_jax.precond.schwarz import build_schwarz
+from ddm_jax.solvers.krylov import gmres_solve, operator_of, prec_of
 
 
 def islands_problem(cs_type, **keys):
@@ -64,7 +64,7 @@ def test_ring_competitive_with_full_geneo():
 
 
 def test_svd_basis_orthonormal():
-    from ddm_tpu.coarse.svd import svd_coarse_space
+    from ddm_jax.coarse.svd import svd_coarse_space
 
     p, pt = islands_problem("svd", **{"svd_coarse_space.n": 6})
     basis = svd_coarse_space(p, pt)
@@ -77,8 +77,8 @@ def test_svd_basis_orthonormal():
 def test_harmonic_extension_is_a_harmonic():
     """Extended vectors must satisfy (A v)_i ~ 0 at interior dofs away from
     the data."""
-    from ddm_tpu.coarse.extension import energy_minimal_extension
-    from ddm_tpu.coarse.geneo import dirichlet_dense
+    from ddm_jax.coarse.extension import energy_minimal_extension
+    from ddm_jax.coarse.geneo import dirichlet_dense
 
     p, pt = islands_problem("pou")
     A_dir, dmask = dirichlet_dense(p)
@@ -102,8 +102,8 @@ def test_constraint_geneo_interior_correction():
     two-level solve stays contrast-robust.  (The shipped reference discards
     the constraint callback at eigensolvers.hh:26-38 — this implements the
     intended capability.)"""
-    from ddm_tpu.coarse.extension import energy_minimal_extension
-    from ddm_tpu.coarse.geneo import dirichlet_dense, geneo_coarse_space
+    from ddm_jax.coarse.extension import energy_minimal_extension
+    from ddm_jax.coarse.geneo import dirichlet_dense, geneo_coarse_space
 
     p, pt = islands_problem(
         "constraint_geneo", **{"constraint_geneo.eigensolver.nev": 8}
@@ -133,11 +133,11 @@ def test_sparse_extension_matches_dense():
     """energy_minimal_extension_sparse (compact free-block extraction from
     the global ELL) must reproduce the dense-A_dir extension exactly — it is
     the same solve at compacted size."""
-    from ddm_tpu.coarse.extension import (
+    from ddm_jax.coarse.extension import (
         energy_minimal_extension,
         energy_minimal_extension_sparse,
     )
-    from ddm_tpu.coarse.geneo import dirichlet_dense
+    from ddm_jax.coarse.geneo import dirichlet_dense
 
     p, _ = islands_problem("none")
     topo = p.topo
@@ -158,14 +158,14 @@ def test_sparse_extension_matches_dense():
 
 def test_pcg_extension_matches_direct():
     """energy_minimal_extension_pcg (CG on the free block preconditioned by
-    the subdomain inverse — the TPU route that avoids a second f64
+    the subdomain inverse — the route that avoids a second f64
     factorization) must agree with the direct factorization and report
     converged residuals."""
-    from ddm_tpu.coarse.extension import (
+    from ddm_jax.coarse.extension import (
         energy_minimal_extension_pcg,
         energy_minimal_extension_sparse,
     )
-    from ddm_tpu.coarse.geneo import dirichlet_dense
+    from ddm_jax.coarse.geneo import dirichlet_dense
 
     p, _ = islands_problem("none")
     topo = p.topo

@@ -1,18 +1,18 @@
-"""M4: Q1 SIPG DG — consistency, convergence, DDM solves (BASELINE config 3)."""
+"""M4: Q1 SIPG DG — consistency, convergence, DDM solves (shipped config 3)."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import scipy.sparse.linalg as spla
 
-from ddm_tpu.config import ParamTree
-from ddm_tpu.core.indexmaps import pou_weights
-from ddm_tpu.core.setup import setup_topology
-from ddm_tpu.fem import structured_grid
-from ddm_tpu.fem import problems as prob
-from ddm_tpu.fem.dg import DGDiscretization
-from ddm_tpu.precond.schwarz import build_schwarz
-from ddm_tpu.solvers.krylov import gmres_solve, operator_of, prec_of
+from ddm_jax.config import ParamTree
+from ddm_jax.core.indexmaps import pou_weights
+from ddm_jax.core.setup import setup_topology
+from ddm_jax.fem import structured_grid
+from ddm_jax.fem import problems as prob
+from ddm_jax.fem.dg import DGDiscretization
+from ddm_jax.precond.schwarz import build_schwarz
+from ddm_jax.solvers.krylov import gmres_solve, operator_of, prec_of
 
 
 def test_dg_reproduces_linear_exactly():
@@ -96,7 +96,7 @@ def test_dg_geneo_two_level():
     one-level method is already strong (the coarse level pays off at scale);
     this checks the full DG GenEO pipeline (elliptic/symmetrized eigenproblem
     from volume+skeleton Neumann stamps) runs and converges."""
-    from ddm_tpu.api import DDMProblem, build_preconditioner, default_ptree
+    from ddm_jax.api import DDMProblem, build_preconditioner, default_ptree
 
     disc, A, b, topo, pou = dg_reference_setup()
     pt = default_ptree()
@@ -116,7 +116,7 @@ def test_dg_geneo_two_level():
 # ---------------------------------------------------------------------------
 # Unstructured simplex DG (P1 SIPG on triangles)
 # ---------------------------------------------------------------------------
-from ddm_tpu.fem.dg import SimplexDGDiscretization
+from ddm_jax.fem.dg import SimplexDGDiscretization
 
 
 def test_simplex_dg_reproduces_linear_exactly():
@@ -162,8 +162,8 @@ def test_simplex_dg_matches_scipy_and_symmetry():
 def test_dg_unstructured():
     """Reference DG problem (convectiondiffusiondg.cc) on the unstructured
     lshape.msh triangle mesh, solved with two-level GenEO-RAS GMRES."""
-    from ddm_tpu.api import DDMProblem, build_preconditioner, default_ptree
-    from ddm_tpu.fem.msh import read_msh
+    from ddm_jax.api import DDMProblem, build_preconditioner, default_ptree
+    from ddm_jax.fem.msh import read_msh
 
     from conftest import reference_mesh
 

@@ -1,4 +1,4 @@
-"""M5: linear elasticity (BASELINE config 4) — vector P1/Q1 assembly +
+"""M5: linear elasticity (shipped config 4) — vector P1/Q1 assembly +
 rigid-body/GenEO coarse spaces on the steel-reinforced rubber bar."""
 
 import numpy as np
@@ -6,15 +6,15 @@ import jax.numpy as jnp
 import pytest
 import scipy.sparse.linalg as spla
 
-from ddm_tpu.api import DDMProblem, build_preconditioner, default_ptree, setup_problem
-from ddm_tpu.fem import structured_grid
-from ddm_tpu.fem import problems as prob
-from ddm_tpu.fem.assemble import (
+from ddm_jax.api import DDMProblem, build_preconditioner, default_ptree, setup_problem
+from ddm_jax.fem import structured_grid
+from ddm_jax.fem import problems as prob
+from ddm_jax.fem.assemble import (
     ElementQuadrature,
     assemble_linear_elasticity,
 )
-from ddm_tpu.fem.discretize import Discretization
-from ddm_tpu.solvers.krylov import gmres_solve, operator_of, prec_of
+from ddm_jax.fem.discretize import Discretization
+from ddm_jax.solvers.krylov import gmres_solve, operator_of, prec_of
 
 
 def bar_problem(cells=(10, 4, 4)):
@@ -41,7 +41,7 @@ def test_rigid_body_modes_in_kernel():
     grid, ep = bar_problem((3, 2, 2))
     disc = Discretization(grid, ep, n_comp=3)
     A, b = disc.assemble()
-    from ddm_tpu.coarse.pou_space import rigid_body_modes
+    from ddm_jax.coarse.pou_space import rigid_body_modes
 
     modes = rigid_body_modes(grid.nodes, 3)
     assert len(modes) == 6
@@ -56,7 +56,7 @@ def test_bar_solve_matches_scipy():
     pt = default_ptree()
     pt["solver.reduction"] = 1e-8
     p = setup_problem(pt, problem=ep, grid=grid, parts=(4, 1, 1), n_comp=3)
-    from ddm_tpu.api import solve, solution
+    from ddm_jax.api import solve, solution
 
     res = solve(p)
     assert bool(res.converged)
@@ -107,7 +107,7 @@ def test_bar_simplex_tets_two_level_geneo():
     assert bool(res.converged)
     assert int(res.iterations) <= 100, int(res.iterations)
     # solution matches a direct solve
-    from ddm_tpu.api import solution
+    from ddm_jax.api import solution
 
     u = solution(p, res)
     Ac, rhs, g = p.disc.constrained_system()
@@ -120,8 +120,8 @@ def test_bar_simplex_tets_two_level_geneo():
 def test_elasticity_bar_msh():
     """Elasticity on the shipped bar.msh (2D triangle bar [0,10]x[-1,1]):
     vector-P1 on an unstructured simplex mesh, clamped at x=0, GenEO-RAS."""
-    from ddm_tpu.fem.msh import read_msh
-    from ddm_tpu.fem.problems import ElasticityProblem
+    from ddm_jax.fem.msh import read_msh
+    from ddm_jax.fem.problems import ElasticityProblem
 
     from conftest import reference_mesh
 

@@ -11,14 +11,14 @@ import pytest
 import scipy.sparse as sps
 import scipy.sparse.linalg as spla
 
-from ddm_tpu.core.sparse import EllPattern, eliminate_dirichlet
-from ddm_tpu.fem import structured_grid
-from ddm_tpu.fem.assemble import (
+from ddm_jax.core.sparse import EllPattern, eliminate_dirichlet
+from ddm_jax.fem import structured_grid
+from ddm_jax.fem.assemble import (
     ElementQuadrature,
     assemble_convection_diffusion,
     element_coo_indices,
 )
-from ddm_tpu.fem import problems as prob
+from ddm_jax.fem import problems as prob
 
 
 def build_poisson(grid, problem):
@@ -90,7 +90,7 @@ def test_q1_manufactured_solution_convergence():
 def test_tri_mesh_assembly():
     # structured grid of triangles via unitsquare msh is tested elsewhere;
     # here: one reference triangle, exact P1 stiffness
-    from ddm_tpu.fem.grids import Grid
+    from ddm_jax.fem.grids import Grid
 
     nodes = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
     elems = np.array([[0, 1, 2]])
@@ -121,7 +121,7 @@ def test_msh_parser_unitsquare():
     path = "/root/reference/data/unitsquare.msh"
     if not os.path.exists(path):
         pytest.skip("reference mesh not available")
-    from ddm_tpu.fem import read_msh
+    from ddm_jax.fem import read_msh
 
     grid = read_msh(path)
     assert grid.elem_type == "tri"
@@ -137,16 +137,16 @@ def test_msh_parser_unitsquare():
 
 def test_chunked_element_assembly_matches_one_shot(monkeypatch):
     """Large element batches assemble in lax.map slabs (_chunked_elements,
-    added after the 157k-hex one-shot einsums OOMed 22.7 GB of HBM at the
-    3-D bench, r4).  Chunked and one-shot agree to contraction-order
+    added after the 157k-hex one-shot einsums at the 3-D bench needed
+    22.7 GB of temporaries).  Chunked and one-shot agree to contraction-order
     roundoff."""
-    from ddm_tpu.fem.assemble import (
+    from ddm_jax.fem.assemble import (
         ElementQuadrature,
         assemble_convection_diffusion,
         assemble_linear_elasticity,
     )
-    from ddm_tpu.fem.grids import structured_grid
-    from ddm_tpu.fem import problems as pm
+    from ddm_jax.fem.grids import structured_grid
+    from ddm_jax.fem import problems as pm
 
     grid = structured_grid((6, 6, 6))
     quad = ElementQuadrature("hex")
@@ -176,7 +176,7 @@ def test_eliminate_dirichlet_dense_jit_matches_impl():
     """The donated-jit elimination path (engaged on non-CPU backends to
     rewrite the batch in place, r4) computes exactly what the eager impl
     does."""
-    from ddm_tpu.fem.subassembly import (
+    from ddm_jax.fem.subassembly import (
         _elim_impl,
         _elim_jit2,
         _elim_jit3,

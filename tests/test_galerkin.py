@@ -13,25 +13,25 @@ import jax.numpy as jnp
 import pytest
 import scipy.sparse as sps
 
-from ddm_tpu.config import ParamTree
-from ddm_tpu.coarse.basis import CoarseBasis, finalize_basis
-from ddm_tpu.coarse.pou_space import pou_coarse_space
-from ddm_tpu.core.indexmaps import build_topology, pou_weights
-from ddm_tpu.core.setup import setup_topology
-from ddm_tpu.core.sparse import EllPattern
-from ddm_tpu.fem import structured_grid
-from ddm_tpu.fem import problems as prob
-from ddm_tpu.fem.discretize import Discretization
-from ddm_tpu.precond.combined import CombinedPreconditioner
-from ddm_tpu.precond.extract import extract_subdomain_dense
-from ddm_tpu.precond.galerkin import (
+from ddm_jax.config import ParamTree
+from ddm_jax.coarse.basis import CoarseBasis, finalize_basis
+from ddm_jax.coarse.pou_space import pou_coarse_space
+from ddm_jax.core.indexmaps import build_topology, pou_weights
+from ddm_jax.core.setup import setup_topology
+from ddm_jax.core.sparse import EllPattern
+from ddm_jax.fem import structured_grid
+from ddm_jax.fem import problems as prob
+from ddm_jax.fem.discretize import Discretization
+from ddm_jax.precond.combined import CombinedPreconditioner
+from ddm_jax.precond.extract import extract_subdomain_dense
+from ddm_jax.precond.galerkin import (
     build_galerkin,
     galerkin_coarse_matrix,
     galerkin_coarse_matrix_local,
 )
-from ddm_tpu.core.indexmaps import extraction_map
-from ddm_tpu.precond.schwarz import build_schwarz
-from ddm_tpu.solvers.krylov import cg_solve, operator_of, prec_of
+from ddm_jax.core.indexmaps import extraction_map
+from ddm_jax.precond.schwarz import build_schwarz
+from ddm_jax.solvers.krylov import cg_solve, operator_of, prec_of
 
 
 # -- the reference fixture (tests/test_galerkin_coarse_matrix.cc:21-67) -----
@@ -191,7 +191,7 @@ def test_multiplicative_mode():
         {"schwarz": {"type": "restricted", "subdomain_solver": {"type": "cholesky"}},
          "coarse_solver": {"type": "lu"}}
     )
-    from ddm_tpu.solvers.krylov import gmres_solve
+    from ddm_jax.solvers.krylov import gmres_solve
 
     fine = build_schwarz(A, topo, pou, pt)
     basis = pou_coarse_space(topo, pou)
@@ -220,11 +220,11 @@ def test_pairs_coarse_matrix_matches_global():
     """galerkin_coarse_matrix_pairs == the true Galerkin product for
     POU-finalized bases (GenEO on islands), symmetric AND nonsymmetric."""
     import jax.numpy as jnp
-    from ddm_tpu.api import default_ptree, setup_problem
-    from ddm_tpu.coarse.geneo import geneo_coarse_space
-    from ddm_tpu.fem import problems as prob
-    from ddm_tpu.precond.extract import extract_subdomain_dense
-    from ddm_tpu.precond.galerkin import (
+    from ddm_jax.api import default_ptree, setup_problem
+    from ddm_jax.coarse.geneo import geneo_coarse_space
+    from ddm_jax.fem import problems as prob
+    from ddm_jax.precond.extract import extract_subdomain_dense
+    from ddm_jax.precond.galerkin import (
         galerkin_coarse_matrix,
         galerkin_coarse_matrix_pairs,
     )
@@ -250,11 +250,11 @@ def test_pairs_shift_path_matches_general_gather():
     """The rect-canvas shift-grouped pair gather (_pairs_device_shift) must
     reproduce the general gather formulation exactly: per pair the same
     values contract in the same order, so the results are bitwise equal."""
-    from ddm_tpu.api import default_ptree, setup_problem
-    from ddm_tpu.coarse.geneo import geneo_coarse_space
-    from ddm_tpu.fem import problems as prob
-    from ddm_tpu.precond.extract import extract_subdomain_dense
-    from ddm_tpu.precond.galerkin import (
+    from ddm_jax.api import default_ptree, setup_problem
+    from ddm_jax.coarse.geneo import geneo_coarse_space
+    from ddm_jax.fem import problems as prob
+    from ddm_jax.precond.extract import extract_subdomain_dense
+    from ddm_jax.precond.galerkin import (
         _pairs_device,
         _pairs_maps,
         _pairs_shift_maps,
@@ -288,8 +288,8 @@ def test_coarse_newton_rtol_flows_and_matches_direct(monkeypatch):
     the resulting two-level solve must match the direct-factorization coarse
     path (Newton error is multiplicative; the coarse apply additionally
     iteratively refines against the stored E)."""
-    import ddm_tpu.solvers.direct as direct
-    from ddm_tpu.api import default_ptree, setup_problem, solve
+    import ddm_jax.solvers.direct as direct
+    from ddm_jax.api import default_ptree, setup_problem, solve
 
     def make_pt():
         pt = default_ptree()
@@ -325,8 +325,8 @@ def test_coarse_newton_rtol_flows_and_matches_direct(monkeypatch):
     assert abs(int(res_newton.iterations) - int(res_direct.iterations)) <= 1
 
     # the Newton-built coarse inverse must be exactly symmetric (CG safety)
-    from ddm_tpu.api import build_preconditioner
-    from ddm_tpu.solvers.direct import BatchedInverse
+    from ddm_jax.api import build_preconditioner
+    from ddm_jax.solvers.direct import BatchedInverse
 
     prec = build_preconditioner(p2)
     coarse = prec.precs[1].coarse
@@ -338,9 +338,9 @@ def test_coarse_newton_rtol_flows_and_matches_direct(monkeypatch):
 def test_coarse_newton_skips_indefinite_diag():
     """A cholesky-declared coarse path with a non-positive diagonal must NOT
     go through the scaled Newton seed (which would produce ~1e150 scale
-    factors); it falls back to the exact pipeline (ADVICE r3)."""
-    from ddm_tpu.precond.galerkin import build_galerkin
-    from ddm_tpu.coarse.basis import CoarseBasis
+    factors); it falls back to the exact pipeline."""
+    from ddm_jax.precond.galerkin import build_galerkin
+    from ddm_jax.coarse.basis import CoarseBasis
 
     # drive build_galerkin with a basis whose Galerkin product has a zero
     # diagonal entry (zero vector on an active slot) — the scaled-seed
@@ -357,7 +357,7 @@ def test_coarse_newton_skips_indefinite_diag():
     pt = ParamTree({"coarse_solver": {
         "type": "cholesky", "construction": "newton", "newton_rtol": 1e-6,
     }})
-    import ddm_tpu.solvers.direct as direct
+    import ddm_jax.solvers.direct as direct
 
     called = {"newton": False}
     orig = direct.newton_inverse_batched

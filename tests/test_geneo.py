@@ -1,6 +1,6 @@
 """M3: GenEO coarse space — batched GEVP correctness and two-level robustness.
 
-The headline property (BASELINE.md config 2): two-level GenEO-RAS iteration
+The headline property (the flagship configuration): two-level GenEO-RAS iteration
 counts are small and robust to coefficient contrast, where one-level Schwarz
 degrades badly on heterogeneous problems.
 """
@@ -10,13 +10,13 @@ import jax.numpy as jnp
 import pytest
 import scipy.linalg
 
-from ddm_tpu.api import default_ptree, setup_problem, build_preconditioner, solve
-from ddm_tpu.config import ParamTree
-from ddm_tpu.eigen import EigensolverParams, solve_gevp_dense
-from ddm_tpu.fem import problems as prob
-from ddm_tpu.fem import structured_grid
-from ddm_tpu.solvers.krylov import gmres_solve, operator_of, prec_of
-from ddm_tpu.precond.schwarz import build_schwarz
+from ddm_jax.api import default_ptree, setup_problem, build_preconditioner, solve
+from ddm_jax.config import ParamTree
+from ddm_jax.eigen import EigensolverParams, solve_gevp_dense
+from ddm_jax.fem import problems as prob
+from ddm_jax.fem import structured_grid
+from ddm_jax.solvers.krylov import gmres_solve, operator_of, prec_of
+from ddm_jax.precond.schwarz import build_schwarz
 
 
 def test_dense_gevp_matches_scipy():
@@ -103,7 +103,7 @@ def test_staged_whitener_matches_chol_and_f64():
     C = jnp.asarray(np.stack(Cs))
     from dataclasses import replace
 
-    from ddm_tpu.eigen import solve_gevp_dense_auto, solve_gevp_dense_jit
+    from ddm_jax.eigen import solve_gevp_dense_auto, solve_gevp_dense_jit
 
     params = EigensolverParams(
         nev=m, threshold=-1.0, precision="f32", refine_iters=4, refine_buf=24
@@ -125,7 +125,7 @@ def test_staged_whitener_fallback_on_f32_failure():
     f32's representable spread) must come back through the shift-escalation
     / exact-f64 fallback with the SAME whitening guarantee Aw = M A M^T
     = I + E, ||E||_F <= rtol."""
-    from ddm_tpu.solvers.direct import staged_whiten_batched
+    from ddm_jax.solvers.direct import staged_whiten_batched
 
     rng = np.random.default_rng(11)
     p = 64
@@ -210,7 +210,7 @@ def test_geneo_adaptive_threshold():
     pt = geneo_ptree(nev=4, threshold=0.3)
     pt["geneo.eigensolver.nev_max"] = 16
     p = setup_problem(pt, problem=prob.islands(), parts=(4, 4))
-    from ddm_tpu.coarse.geneo import geneo_coarse_space
+    from ddm_jax.coarse.geneo import geneo_coarse_space
 
     basis = geneo_coarse_space(p, pt)
     counts = np.asarray(basis.active.sum(axis=1))
@@ -253,8 +253,8 @@ def test_probe_whitener_thin_metric_matches_batched():
     import os
     from dataclasses import replace
 
-    from ddm_tpu.eigen import solve_gevp_dense_auto
-    from ddm_tpu.solvers.direct import staged_whiten_estimate
+    from ddm_jax.eigen import solve_gevp_dense_auto
+    from ddm_jax.solvers.direct import staged_whiten_estimate
 
     rng = np.random.default_rng(11)
     n_sub, p, m = 4, 96, 6
@@ -274,7 +274,7 @@ def test_probe_whitener_thin_metric_matches_batched():
         refine_buf=24, whiten="staged",
     )
     # the probe must actually accept at this conditioning
-    from ddm_tpu.eigen.dense_gevp import _prep_jit
+    from ddm_jax.eigen.dense_gevp import _prep_jit
     Areg = _prep_jit()(A, C, params.shift, 1e-12)
     M, Aw, r = staged_whiten_estimate(Areg)
     assert Aw is None, f"probe should accept stage-0 here (resid {r})"

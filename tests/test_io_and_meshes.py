@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import pytest
 import scipy.sparse.linalg as spla
 
-from ddm_tpu.core.io import read_matrix_market, write_matrix_market
-from ddm_tpu.fem import read_msh
-from ddm_tpu.fem import problems as prob
-from ddm_tpu.fem.discretize import Discretization
+from ddm_jax.core.io import read_matrix_market, write_matrix_market
+from ddm_jax.fem import read_msh
+from ddm_jax.fem import problems as prob
+from ddm_jax.fem.discretize import Discretization
 
 
 def test_matrix_market_roundtrip(tmp_path):
@@ -57,7 +57,7 @@ def test_tet_mesh_ddm_solve():
     path = "/root/reference/data/unitcube.msh"
     if not os.path.exists(path):
         pytest.skip("mesh unavailable")
-    from ddm_tpu.api import default_ptree, setup_problem, solve
+    from ddm_jax.api import default_ptree, setup_problem, solve
 
     grid = read_msh(path)
     pt = default_ptree()
@@ -71,7 +71,7 @@ def test_tet_mesh_ddm_solve():
 def test_refine_unstructured_tri():
     """Edge-midpoint refinement of a triangle .msh mesh
     (ddm_utilities.hh:86-89 globalRefine equivalent)."""
-    from ddm_tpu.fem.grids import Grid, refine, structured_grid
+    from ddm_jax.fem.grids import Grid, refine, structured_grid
 
     g = structured_grid((3, 3), simplex=True)
     g = Grid(nodes=g.nodes, elems=g.elems, elem_type="tri")  # mark unstructured
@@ -89,8 +89,8 @@ def test_refine_unstructured_tri():
 
 def test_refine_unstructured_tet():
     """Bey's red refinement of tets: 8 children, volume preserved."""
-    from ddm_tpu.fem.grids import refine
-    from ddm_tpu.fem.msh import read_msh
+    from ddm_jax.fem.grids import refine
+    from ddm_jax.fem.msh import read_msh
 
     from conftest import reference_mesh
 

@@ -5,16 +5,16 @@ import jax.numpy as jnp
 import pytest
 import scipy.sparse.linalg as spla
 
-from ddm_tpu.config import ParamTree
-from ddm_tpu.core.indexmaps import pou_weights, extraction_map
-from ddm_tpu.core.setup import setup_topology
-from ddm_tpu.fem import structured_grid
-from ddm_tpu.fem.discretize import Discretization
-from ddm_tpu.fem import problems as prob
-from ddm_tpu.precond.extract import extract_subdomain_dense
-from ddm_tpu.precond.schwarz import build_schwarz
-from ddm_tpu.solvers.direct import SparseRefinedInverse, factor_batched
-from ddm_tpu.solvers.krylov import (
+from ddm_jax.config import ParamTree
+from ddm_jax.core.indexmaps import pou_weights, extraction_map
+from ddm_jax.core.setup import setup_topology
+from ddm_jax.fem import structured_grid
+from ddm_jax.fem.discretize import Discretization
+from ddm_jax.fem import problems as prob
+from ddm_jax.precond.extract import extract_subdomain_dense
+from ddm_jax.precond.schwarz import build_schwarz
+from ddm_jax.solvers.direct import SparseRefinedInverse, factor_batched
+from ddm_jax.solvers.krylov import (
     fgmres_solve,
     gmres_solve,
     operator_of,
@@ -74,7 +74,8 @@ def test_fgmres_in_solver_factory():
 
 def test_sparse_refined_inverse():
     """f32 inverse + sparse-f64 refinement: each refinement step contracts
-    the solve error (run directly on CPU; the build path gates on TPU)."""
+    the solve error (run directly on CPU; the build path gates on the
+    backend)."""
     disc, A, rhs, topo, pou = setup(cells=(16, 16))
     lc = jnp.asarray(extraction_map(topo, np.asarray(A.colsT).T))
     s2g = jnp.asarray(topo.sub2glob)
@@ -104,7 +105,7 @@ def test_bicgstab_breakdown_flag():
     half-step: ISTL throws SolverAbort (solvers.hh), the jitted solver
     reports it via result.breakdown instead of silently continuing."""
     import jax
-    from ddm_tpu.solvers.krylov import bicgstab_solve
+    from ddm_jax.solvers.krylov import bicgstab_solve
 
     op = jax.tree_util.Partial(lambda x: jnp.stack([x[1], -x[0]]))
     b = jnp.asarray([1.0, 0.0])
@@ -119,7 +120,7 @@ def test_bicgstab_half_iteration_convergence():
     it += .5 accounting stops there (iterations = ceil(0.5) = 1) instead of
     running the stabilization half."""
     import jax
-    from ddm_tpu.solvers.krylov import bicgstab_solve
+    from ddm_jax.solvers.krylov import bicgstab_solve
 
     op = jax.tree_util.Partial(lambda x: x)
     b = jnp.asarray([1.0, 2.0, 3.0])
@@ -134,7 +135,7 @@ def test_bicgstab_solves_spd_system():
     """Regression: full-step path still solves a real SPD system with the
     half-step bookkeeping."""
     import jax
-    from ddm_tpu.solvers.krylov import bicgstab_solve
+    from ddm_jax.solvers.krylov import bicgstab_solve
 
     rng = np.random.default_rng(5)
     n = 40
@@ -153,11 +154,11 @@ def test_gmres_dd_ortho_parity():
     """ortho='dd' (double-single CGS2 basis dots) must reach the same target
     with the same iteration count (+-1) as f64 orthogonalization."""
     import jax.numpy as jnp
-    from ddm_tpu.api import default_ptree, setup_problem
-    from ddm_tpu.fem import problems as prob
-    from ddm_tpu.solvers.krylov import gmres_solve, operator_of, prec_of
-    from ddm_tpu.precond.schwarz import build_schwarz
-    from ddm_tpu.core.indexmaps import pou_weights
+    from ddm_jax.api import default_ptree, setup_problem
+    from ddm_jax.fem import problems as prob
+    from ddm_jax.solvers.krylov import gmres_solve, operator_of, prec_of
+    from ddm_jax.precond.schwarz import build_schwarz
+    from ddm_jax.core.indexmaps import pou_weights
 
     pt = default_ptree()
     pt["gridsize"] = 48

@@ -8,8 +8,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ddm_tpu.eigen import EigensolverParams, solve_gevp_dense
-from ddm_tpu.eigen.lobpcg import lobpcg_gevp
+from ddm_jax.eigen import EigensolverParams, solve_gevp_dense
+from ddm_jax.eigen.lobpcg import lobpcg_gevp
 
 
 def make_pencils(n_sub=3, p=40, seed=0):
@@ -83,7 +83,7 @@ def test_dispatch_krylovschur_matches_dense():
     uses) dispatches to the iterative path; eigenvalues must match the dense
     transform — the reference's two-solver cross-check
     (test_eigensolver.cc:230-240)."""
-    from ddm_tpu.eigen import solve_gevp
+    from ddm_jax.eigen import solve_gevp
 
     A, C = make_pencils()
     params_d = EigensolverParams(nev=4, threshold=-1.0)
@@ -101,10 +101,10 @@ def test_dispatch_krylovschur_matches_dense():
 
 
 def test_auto_dispatch_picks_by_subdomain_size(monkeypatch):
-    """eigensolver.type=auto: dense at/below the measured TPU crossover,
+    """eigensolver.type=auto: dense at/below the crossover,
     LOBPCG above it, dense for non-SPD pencils regardless of size (no
     reference analogue — eigensolvers.hh:14-38 only implements Spectra)."""
-    import ddm_tpu.eigen as eig
+    import ddm_jax.eigen as eig
 
     A, C = make_pencils()  # p = 40
     params = EigensolverParams(
@@ -133,7 +133,7 @@ def test_adaptive_nev_escalation():
     """threshold > 0: the block width doubles until the largest computed
     eigenvalue clears the threshold (spectra.hh:157-189 nev escalation),
     and the active mask keeps exactly the below-threshold prefix."""
-    from ddm_tpu.eigen.lobpcg import lobpcg_gevp_adaptive
+    from ddm_jax.eigen.lobpcg import lobpcg_gevp_adaptive
 
     p = 32
     diag = np.arange(1.0, p + 1)
@@ -154,8 +154,8 @@ def test_geneo_pipeline_with_iterative_eigensolver():
     """Config-selectable end to end: geneo.eigensolver.type=KrylovSchur runs
     the full two-level pipeline on the islands problem with iteration counts
     matching the dense-eigensolver pipeline."""
-    from ddm_tpu.api import default_ptree, setup_problem, solve
-    from ddm_tpu.fem import problems as pm
+    from ddm_jax.api import default_ptree, setup_problem, solve
+    from ddm_jax.fem import problems as pm
 
     def run(es_type):
         pt = default_ptree()
@@ -181,10 +181,10 @@ def test_lobpcg_geneo_pencil():
     the same smallest eigenvalues as the dense path."""
     import jax
 
-    from ddm_tpu.api import default_ptree, setup_problem
-    from ddm_tpu.coarse.geneo import neumann_matrices
-    from ddm_tpu.fem import problems as pm
-    from ddm_tpu.fem.subassembly import scale_matrix_with_pou
+    from ddm_jax.api import default_ptree, setup_problem
+    from ddm_jax.coarse.geneo import neumann_matrices
+    from ddm_jax.fem import problems as pm
+    from ddm_jax.fem.subassembly import scale_matrix_with_pou
 
     pt = default_ptree()
     pt["gridsize"] = 24
@@ -206,13 +206,13 @@ def test_lobpcg_geneo_pencil():
 @pytest.mark.slow
 def test_auto_crossover_at_real_scale():
     """Run the auto dispatch on REAL GenEO pencils ABOVE the production
-    crossover (p > AUTO_CROSSOVER_P = 2048, no monkeypatched threshold —
-    VERDICT r3 weak #6): the iterative path must engage and the resulting
+    crossover (p > AUTO_CROSSOVER_P = 2048, no monkeypatched threshold):
+    the iterative path must engage and the resulting
     coarse space must solve the problem with the same iteration count as
     the dense path."""
-    import ddm_tpu.eigen as eig
-    from ddm_tpu.api import default_ptree, setup_problem, solve
-    from ddm_tpu.fem import problems as pm
+    import ddm_jax.eigen as eig
+    from ddm_jax.api import default_ptree, setup_problem, solve
+    from ddm_jax.fem import problems as pm
 
     calls = []
     orig = eig.solve_gevp

@@ -5,12 +5,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ddm_tpu.fem import problems as prob
-from ddm_tpu.fem.scripted import load_problem
+from ddm_jax.fem import problems as prob
+from ddm_jax.fem.scripted import load_problem
 
 
 def test_scripted_problem_matches_builtin():
-    p = load_problem("ddm_tpu/examples/coefficients/poisson_coefficient.py")
+    p = load_problem("ddm_jax/examples/coefficients/poisson_coefficient.py")
     rng = np.random.default_rng(0)
     xq = jnp.asarray(rng.uniform(size=(50, 2)))
     np.testing.assert_allclose(
@@ -28,7 +28,7 @@ def test_scripted_symmetric_convection_diffusion():
     # symmetric_convection_diffusion_coefficient.lua:1-15: alpha = 1, f = 1,
     # Dirichlet on x = 0 and y = 1, g = 0
     p = load_problem(
-        "ddm_tpu/examples/coefficients/"
+        "ddm_jax/examples/coefficients/"
         "symmetric_convection_diffusion_coefficient.py"
     )
     xq = jnp.asarray([[0.0, 0.5], [0.5, 1.0], [0.5, 0.5], [1.0, 0.0]])
@@ -40,7 +40,7 @@ def test_scripted_symmetric_convection_diffusion():
 
 
 def test_masked_dot():
-    from ddm_tpu.solvers.krylov import masked_dot, masked_norm
+    from ddm_jax.solvers.krylov import masked_dot, masked_norm
 
     x = jnp.asarray([1.0, 2.0, 3.0])
     m = jnp.asarray([True, False, True])
@@ -49,7 +49,7 @@ def test_masked_dot():
 
 
 def test_modify_subdomain_matrix_converges():
-    from ddm_tpu.api import default_ptree, setup_problem, solve
+    from ddm_jax.api import default_ptree, setup_problem, solve
 
     pt = default_ptree()
     pt["gridsize"] = 32
@@ -60,7 +60,7 @@ def test_modify_subdomain_matrix_converges():
 
 
 def test_example_smoke_poisson(tmp_path):
-    from ddm_tpu.examples.poisson import main
+    from ddm_jax.examples.poisson import main
 
     main(["-gridsize", "16", "-subdomains", "4", "-visualise", "true",
           "-vtk_filename", str(tmp_path / "o.vtu"),
@@ -74,7 +74,7 @@ def test_visualise_debug_fields(tmp_path):
     region (all-zero for non-ring coarse spaces)."""
     import re
 
-    from ddm_tpu.examples.poisson import main
+    from ddm_jax.examples.poisson import main
 
     f = tmp_path / "dbg.vtu"
     main(["-gridsize", "16", "-subdomains", "4", "-visualise", "true",
@@ -87,15 +87,15 @@ def test_visualise_debug_fields(tmp_path):
 
 
 def test_example_smoke_scripted(tmp_path):
-    from ddm_tpu.examples.poisson import main
+    from ddm_jax.examples.poisson import main
 
     main(["-gridsize", "16", "-subdomains", "4",
           "-coefficient_file",
-          "ddm_tpu/examples/coefficients/poisson_coefficient.py"])
+          "ddm_jax/examples/coefficients/poisson_coefficient.py"])
 
 
 def test_example_smoke_cli_elasticity():
-    from ddm_tpu.examples.cli import main
+    from ddm_jax.examples.cli import main
 
     main(["-problem", "elasticity", "-cells_x", "8", "-cells_y", "2",
           "-cells_z", "3", "-subdomains_x", "2"])

@@ -15,8 +15,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ddm_tpu.api import default_ptree, setup_problem, solve, build_preconditioner
-from ddm_tpu.core.mesh import subdomain_mesh
+from ddm_jax.api import default_ptree, setup_problem, solve, build_preconditioner
+from ddm_jax.core.mesh import subdomain_mesh
 
 
 def _problem(coarse="none", parts=(4, 2), gridsize=24, nev=4):
@@ -80,9 +80,9 @@ def test_sharded_prec_state_is_distributed(mesh8):
 def test_setup_is_sharded_during_build(mesh8):
     """The EXPENSIVE setup state (subdomain inverses, coarse basis) must be
     computed sharded — committed to P('sub') as produced, not re-sharded
-    after a single-device build (VERDICT r2 item 1)."""
-    from ddm_tpu.core.mesh import setup_sharding
-    from ddm_tpu.precond.schwarz import build_schwarz
+    after a single-device build."""
+    from ddm_jax.core.mesh import setup_sharding
+    from ddm_jax.precond.schwarz import build_schwarz
 
     p = _problem("none")
     with setup_sharding(mesh8, p.topo.n_sub):
@@ -97,7 +97,7 @@ def test_setup_is_sharded_during_build(mesh8):
 def _sharded_parity(pt_mutator, mesh, parts=(4, 2), gridsize=24,
                     problem_name=None, exact=True):
     """Full config-driven pipeline, sharded vs single-device."""
-    from ddm_tpu.fem import problems as problems_mod
+    from ddm_jax.fem import problems as problems_mod
 
     pt = default_ptree()
     pt["gridsize"] = gridsize
@@ -166,7 +166,7 @@ def test_sharded_setup_lobpcg(mesh8):
 def test_gmres_sharded_two_level(mesh8):
     """Two-level GenEO-RAS under GMRES, sharded vs single-device parity on
     a heterogeneous (islands) problem — the headline configuration."""
-    from ddm_tpu.fem import problems as problems_mod
+    from ddm_jax.fem import problems as problems_mod
 
     pt = default_ptree()
     pt["gridsize"] = 32
@@ -186,7 +186,7 @@ def test_gmres_sharded_two_level(mesh8):
 
 
 def test_sharded_setup_newton_construction(mesh8):
-    """The f32-seed + f64 Newton factorise (TPU default construction,
+    """The f32-seed + f64 Newton factorise (accelerator default construction,
     solvers/direct.py:newton_inverse_batched) under the sharded setup: the
     per-chunk residual-controlled host loop must work with GSPMD-sharded
     chunks and produce the same iterates as the single-device build."""
@@ -195,8 +195,8 @@ def test_sharded_setup_newton_construction(mesh8):
         pt["coarsespace.type"] = "geneo"
         pt["geneo.eigensolver.nev"] = 3
         pt["geneo.eigensolver.threshold"] = -1.0
-        # force the TPU-default construction on CPU; dd precision forces the
-        # explicit-inverse mode that makes it live
+        # force the accelerator-default construction on CPU; dd precision
+        # forces the explicit-inverse mode that makes it live
         pt["schwarz.subdomain_solver.construction"] = "newton"
         pt["schwarz.subdomain_solver.precision"] = "dd"
         pt["solver.reduction"] = 1e-6
@@ -207,12 +207,12 @@ def test_sharded_setup_newton_construction(mesh8):
 def test_sharded_chunk_boundary(mesh8, monkeypatch):
     """chunked_batch must split and re-commit chunks under an active
     setup_sharding (solvers/direct.py chunk re-commit path): force
-    DDM_TPU_BATCH_CHUNK=1 so the per-device budget (1 * 8 devices = 8) is
+    DDM_BATCH_CHUNK=1 so the per-device budget (1 * 8 devices = 8) is
     below n_sub = 16 and the factorization runs in two sharded chunks.
-    Zero-coverage gap flagged by VERDICT r3 (weak #4)."""
-    monkeypatch.setenv("DDM_TPU_BATCH_CHUNK", "1")
+    """
+    monkeypatch.setenv("DDM_BATCH_CHUNK", "1")
 
-    import ddm_tpu.solvers.direct as direct
+    import ddm_jax.solvers.direct as direct
 
     calls = {"n": 0}
     orig = direct.chunked_batch
@@ -224,7 +224,7 @@ def test_sharded_chunk_boundary(mesh8, monkeypatch):
         return orig(fn, *arrays, chunk=chunk)
 
     monkeypatch.setattr(direct, "chunked_batch", spy)
-    import ddm_tpu.precond.schwarz as schwarz_mod
+    import ddm_jax.precond.schwarz as schwarz_mod
 
     monkeypatch.setattr(schwarz_mod, "chunked_batch", spy)
 

@@ -4,16 +4,16 @@ import numpy as np
 import pytest
 import scipy.sparse as sps
 
-from ddm_tpu._native import build, load
-from ddm_tpu.core.indexmaps import (
+from ddm_jax._native import build, load
+from ddm_jax.core.indexmaps import (
     build_topology,
     dof_membership_from_elems,
     dof_owner_lowest,
 )
-from ddm_tpu.core.setup import partition_elements
-from ddm_tpu.fem import structured_grid
-from ddm_tpu.fem.discretize import Discretization
-from ddm_tpu.fem import problems as prob
+from ddm_jax.core.setup import partition_elements
+from ddm_jax.fem import structured_grid
+from ddm_jax.fem.discretize import Discretization
+from ddm_jax.fem import problems as prob
 
 
 def test_native_builds():
@@ -50,7 +50,7 @@ def test_native_unstructured():
     path = "/root/reference/data/unitsquare.msh"
     if not os.path.exists(path):
         pytest.skip("mesh unavailable")
-    from ddm_tpu.fem import read_msh
+    from ddm_jax.fem import read_msh
 
     grid = read_msh(path)
     disc = Discretization(grid, prob.simple())

@@ -1,4 +1,4 @@
-"""M6: Newton nonlinear solver (BASELINE config 5) — nonlinear Poisson
+"""M6: Newton nonlinear solver (shipped config 5) — nonlinear Poisson
 -Δu + η u² = f with two-level Schwarz inner solves and setup reuse."""
 
 import numpy as np
@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import pytest
 import scipy.sparse.linalg as spla
 
-from ddm_tpu.config import ParamTree, read_ini
-from ddm_tpu.fem import structured_grid
-from ddm_tpu.fem.nonlinear import NonlinearDiscretization, NonlinearProblem
-from ddm_tpu.solvers.nonlinear_driver import TwoLevelNewtonSolver
+from ddm_jax.config import ParamTree, read_ini
+from ddm_jax.fem import structured_grid
+from ddm_jax.fem.nonlinear import NonlinearDiscretization, NonlinearProblem
+from ddm_jax.solvers.nonlinear_driver import TwoLevelNewtonSolver
 
 
 def newton_ptree():
@@ -98,7 +98,7 @@ def test_hackbusch_reusken_line_search():
     ||r(u - lam dz)|| < (1 - lam/4) ||r(u)|| (PDELab
     LineSearchHackbuschReusken), not on simple decrease: a direction giving
     only marginal decrease at lam=1 must be damped."""
-    from ddm_tpu.solvers.newton import newton_solve
+    from ddm_jax.solvers.newton import newton_solve
 
     calls = []
 
@@ -126,7 +126,7 @@ def test_line_search_accept_best():
     """PDELab's AcceptBest fallback: when no trial passes the sufficient-
     decrease test, the best strictly-decreasing trial is taken instead of
     failing."""
-    from ddm_tpu.solvers.newton import newton_solve
+    from ddm_jax.solvers.newton import newton_solve
 
     # r(u) = sign(u) * sqrt(|u|): Newton overshoots wildly; sufficient
     # decrease (1 - lam/4) fails at lam=1 (defect ratio ~ 1) but some

@@ -6,7 +6,7 @@ import io
 
 import pytest
 
-from ddm_tpu.obs.logger import Logger, ScopedLog, logger, scoped, setup_loggers
+from ddm_jax.obs.logger import Logger, ScopedLog, logger, scoped, setup_loggers
 
 
 def test_event_timing_and_report():

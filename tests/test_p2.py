@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import pytest
 import scipy.sparse.linalg as spla
 
-from ddm_tpu.fem import structured_grid
-from ddm_tpu.fem.discretize import Discretization
-from ddm_tpu.fem import problems as prob
+from ddm_jax.fem import structured_grid
+from ddm_jax.fem.discretize import Discretization
+from ddm_jax.fem import problems as prob
 
 
 def solve_poisson(grid, degree):
@@ -58,16 +58,16 @@ def test_p2_reproduces_quadratic_exactly():
 
 
 def test_p2_ddm_solve():
-    from ddm_tpu.api import default_ptree, setup_problem, solve
+    from ddm_jax.api import default_ptree, setup_problem, solve
 
     grid = structured_grid((24, 24), simplex=True)
     pt = default_ptree()
     pt["solver.reduction"] = 1e-8
     disc_kwargs = {}
-    from ddm_tpu.api import DDMProblem, build_preconditioner
-    from ddm_tpu.core.setup import setup_topology
-    from ddm_tpu.core.indexmaps import pou_weights
-    from ddm_tpu.core.sparse import jacobi_equilibrate
+    from ddm_jax.api import DDMProblem, build_preconditioner
+    from ddm_jax.core.setup import setup_topology
+    from ddm_jax.core.indexmaps import pou_weights
+    from ddm_jax.core.sparse import jacobi_equilibrate
 
     disc = Discretization(grid, prob.islands(), degree=2)
     A, rhs, g = disc.constrained_system()
@@ -80,7 +80,7 @@ def test_p2_ddm_solve():
     p = DDMProblem(disc=disc, topo=topo, A=A, rhs=rhs, g=g, pou=pou,
                    ptree=pt, elem_part=ep, scale=scale)
     prec = build_preconditioner(p)
-    from ddm_tpu.solvers.krylov import gmres_solve, operator_of, prec_of
+    from ddm_jax.solvers.krylov import gmres_solve, operator_of, prec_of
 
     res = gmres_solve(operator_of(A), prec_of(prec), rhs, jnp.zeros_like(rhs),
                       reduction=1e-8, maxit=300, restart=50)
@@ -90,9 +90,9 @@ def test_p2_ddm_solve():
 
 def test_p2_newton():
     """The reference's nonlinear config: P2 simplices + Newton."""
-    from ddm_tpu.fem.nonlinear import NonlinearDiscretization, NonlinearProblem
-    from ddm_tpu.solvers.nonlinear_driver import TwoLevelNewtonSolver
-    from ddm_tpu.config import ParamTree
+    from ddm_jax.fem.nonlinear import NonlinearDiscretization, NonlinearProblem
+    from ddm_jax.solvers.nonlinear_driver import TwoLevelNewtonSolver
+    from ddm_jax.config import ParamTree
 
     nlp = NonlinearProblem(q=lambda u: 10 * u * u, dq=lambda u: 20 * u,
                            f=lambda x: jnp.sum(x * x, -1))

@@ -1,6 +1,6 @@
 """M1 end-to-end: one-level (restricted) additive Schwarz + CG on Poisson.
 
-This is BASELINE.md config 1 (one-level Schwarz + CG).  Checks:
+This is the reference's first shipped config (one-level Schwarz + CG).  Checks:
 solution correctness vs scipy, preconditioning effectiveness, and the
 standard-vs-restricted semantics of schwarz.hh:138-143.
 """
@@ -10,14 +10,14 @@ import jax.numpy as jnp
 import pytest
 import scipy.sparse.linalg as spla
 
-from ddm_tpu.config import ParamTree
-from ddm_tpu.core.indexmaps import pou_weights
-from ddm_tpu.core.setup import setup_topology
-from ddm_tpu.fem import structured_grid, read_msh
-from ddm_tpu.fem.discretize import Discretization
-from ddm_tpu.fem import problems as prob
-from ddm_tpu.precond.schwarz import build_schwarz
-from ddm_tpu.solvers.krylov import cg_solve, operator_of, prec_of
+from ddm_jax.config import ParamTree
+from ddm_jax.core.indexmaps import pou_weights
+from ddm_jax.core.setup import setup_topology
+from ddm_jax.fem import structured_grid, read_msh
+from ddm_jax.fem.discretize import Discretization
+from ddm_jax.fem import problems as prob
+from ddm_jax.precond.schwarz import build_schwarz
+from ddm_jax.solvers.krylov import cg_solve, operator_of, prec_of
 
 
 def poisson_setup(cells=(24, 24), parts=(2, 2), overlap=2, problem=None):
@@ -58,7 +58,7 @@ def test_as_cg_converges_and_matches_scipy():
 
 @pytest.mark.parametrize("pt", ["standard", "trivial", "distance"])
 def test_ras_gmres_converges(pt):
-    from ddm_tpu.solvers.krylov import gmres_solve
+    from ddm_jax.solvers.krylov import gmres_solve
 
     disc, Ac, rhs, g, topo = poisson_setup(cells=(16, 16))
     pou = pou_weights(topo, pt)
@@ -72,7 +72,7 @@ def test_ras_gmres_converges(pt):
 
 
 def test_ras_bicgstab_converges():
-    from ddm_tpu.solvers.krylov import bicgstab_solve
+    from ddm_jax.solvers.krylov import bicgstab_solve
 
     disc, Ac, rhs, g, topo = poisson_setup(cells=(16, 16))
     pou = pou_weights(topo, "distance")
@@ -109,7 +109,7 @@ def test_unstructured_mesh_ras_gmres():
     disc = Discretization(grid, prob.simple())
     Ac, rhs, g = disc.constrained_system()
     topo, _ = setup_topology(disc, overlap=2, n_sub=8)
-    from ddm_tpu.solvers.krylov import gmres_solve
+    from ddm_jax.solvers.krylov import gmres_solve
 
     pou = pou_weights(topo, "distance")
     P = build_schwarz(Ac, topo, pou, schwarz_ptree())
@@ -140,7 +140,7 @@ def test_dd_apply_matches_f64():
     the f64 inverse to ~2^-48; the apply result matches the f64 apply to
     f32-accumulation noise."""
     import jax.numpy as jnp
-    from ddm_tpu.solvers.direct import (
+    from ddm_jax.solvers.direct import (
         BatchedInverseDD, dd_split, factor_batched,
     )
 
@@ -160,7 +160,7 @@ def test_dd_apply_matches_f64():
     xdd = dd.solve(b)
     err = float(jnp.abs(xdd - x64).max() / jnp.abs(x64).max())
     assert err < 1e-5, err
-    # multi-RHS path with sparse defect correction (ADVICE r2: was silently
+    # multi-RHS path with sparse defect correction (was silently
     # skipped for 3-D inputs) — refinement must run and tighten the result
     import dataclasses
 
@@ -189,10 +189,10 @@ def test_two_level_dd_precision_converges_like_f64():
     each cycle; measured ~1.6x here — unlike the plain-f32 path, which
     stalls outright on high-contrast problems)."""
     import jax.numpy as jnp
-    from ddm_tpu.api import (
+    from ddm_jax.api import (
         build_preconditioner, default_ptree, setup_problem, solve,
     )
-    from ddm_tpu.fem import problems as prob
+    from ddm_jax.fem import problems as prob
 
     pt = default_ptree()
     pt["gridsize"] = 48

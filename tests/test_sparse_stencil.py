@@ -1,9 +1,8 @@
 """Stencil fast-path SpMV (core/sparse.py): affine-pattern detection and
 shift-based mv equivalence with the general gather path.
 
-TPU motivation (round 3, scratch/spmv_variants_r3.py): 1-D-operand gathers
-execute element-at-a-time on the backend; structured patterns instead run as
-m contiguous shifted slices at memory bandwidth."""
+Motivation: structured patterns run as m contiguous shifted slices at memory
+bandwidth instead of a 1-D-operand gather."""
 
 import dataclasses
 
@@ -11,9 +10,9 @@ import numpy as np
 import jax.numpy as jnp
 import scipy.sparse as sps
 
-from ddm_tpu.core.sparse import EllPattern, eliminate_dirichlet, jacobi_equilibrate
-from ddm_tpu.fem import structured_grid
-from ddm_tpu.fem.assemble import element_coo_indices
+from ddm_jax.core.sparse import EllPattern, eliminate_dirichlet, jacobi_equilibrate
+from ddm_jax.fem import structured_grid
+from ddm_jax.fem.assemble import element_coo_indices
 
 
 def _q1_pattern(cells=(12, 10)):
@@ -105,7 +104,7 @@ def test_tiled_take_exact():
     """tiled_take (bandwidth-class 1-D gather: row-gather + one-hot lane
     select) must be bit-exact pure data movement for any index shape,
     including tile-boundary indices and non-multiple-of-128 operands."""
-    from ddm_tpu.core.sparse import tiled_take
+    from ddm_jax.core.sparse import tiled_take
 
     rng = np.random.default_rng(3)
     for n in (130, 1000, 4096):

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sps
 
-from ddm_tpu.core.indexmaps import (
+from ddm_jax.core.indexmaps import (
     build_topology,
     dof_membership_from_elems,
     dof_owner_lowest,
@@ -17,9 +17,9 @@ from ddm_tpu.core.indexmaps import (
     partition_structured,
     pou_weights,
 )
-from ddm_tpu.core.sparse import EllPattern
-from ddm_tpu.fem import structured_grid
-from ddm_tpu.fem.assemble import element_coo_indices
+from ddm_jax.core.sparse import EllPattern
+from ddm_jax.fem import structured_grid
+from ddm_jax.fem.assemble import element_coo_indices
 
 
 def make_topo(cells=(16, 16), parts=(2, 2), overlap=2):
@@ -122,19 +122,19 @@ def test_general_extraction_chunked_parity(monkeypatch):
     """Regression for the r4 unstructured-audit OOM fixes: drive the
     GENERAL (non-canvas) extraction + stamp-sum Neumann + geneo build at a
     size where the chunked/donated slab paths actually engage
-    (DDM_EXTRACT_ONESHOT_BYTES + DDM_TPU_BATCH_CHUNK forced small), and pin
+    (DDM_EXTRACT_ONESHOT_BYTES + DDM_BATCH_CHUNK forced small), and pin
     bitwise extraction parity + end-to-end solution parity against the
     one-shot paths."""
     import jax.numpy as jnp
 
-    from ddm_tpu.api import build_preconditioner, default_ptree, \
+    from ddm_jax.api import build_preconditioner, default_ptree, \
         setup_problem, solve
-    from ddm_tpu.core.indexmaps import extraction_map
-    from ddm_tpu.core.mesh import batched
-    from ddm_tpu.fem import problems as pm
-    from ddm_tpu.fem.grids import refine
-    from ddm_tpu.fem.msh import read_msh
-    from ddm_tpu.precond.extract import extract_subdomain_dense
+    from ddm_jax.core.indexmaps import extraction_map
+    from ddm_jax.core.mesh import batched
+    from ddm_jax.fem import problems as pm
+    from ddm_jax.fem.grids import refine
+    from ddm_jax.fem.msh import read_msh
+    from ddm_jax.precond.extract import extract_subdomain_dense
 
     from conftest import reference_mesh
 
@@ -154,7 +154,7 @@ def test_general_extraction_chunked_parity(monkeypatch):
 
     # force every slab/donated path on
     monkeypatch.setenv("DDM_EXTRACT_ONESHOT_BYTES", "1")
-    monkeypatch.setenv("DDM_TPU_BATCH_CHUNK", "3")  # 8 subdomains -> 3 slabs
+    monkeypatch.setenv("DDM_BATCH_CHUNK", "3")  # 8 subdomains -> 3 slabs
     E_chunk = np.asarray(extract_subdomain_dense(p.A, s2g, val, lc))
     np.testing.assert_array_equal(E_one, E_chunk)
 
